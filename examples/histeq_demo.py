@@ -15,6 +15,7 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "out")
 
 import numpy as np
 
@@ -22,7 +23,7 @@ import numpy as np
 def equalize_bgr(bgr, alpha, punch, clip, local):
     import cv2
 
-    from oclcomputervision_tpu import ops
+    from oclcomputervision_jax import ops
 
     ycrcb = cv2.cvtColor(bgr, cv2.COLOR_BGR2YCrCb)
     y = ycrcb[:, :, 0]
@@ -46,7 +47,7 @@ def plot_hist(bgr, height=120):
     grid, drawn as B/G/R curves on a black strip as wide as the image."""
     import cv2
 
-    from oclcomputervision_tpu.ops.histeq import histogram256
+    from oclcomputervision_jax.ops.histeq import histogram256
 
     w = bgr.shape[1]
     strip = np.zeros((height, w, 3), np.uint8)
@@ -62,8 +63,8 @@ def plot_hist(bgr, height=120):
 def main():
     import cv2
 
-    from oclcomputervision_tpu.utils import asset_path
-    from oclcomputervision_tpu.utils.profiling import timed
+    from oclcomputervision_jax.utils import asset_path
+    from oclcomputervision_jax.utils.profiling import timed
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--image", default=asset_path("under_exposure.jpg"))
@@ -72,7 +73,7 @@ def main():
     ap.add_argument("--punch", type=float, default=0.05)
     ap.add_argument("--clip", type=float, default=2.0)
     ap.add_argument("--local", action="store_true", help="local-block (CLAHE-style)")
-    ap.add_argument("--out", default="/tmp/histeq_demo.png")
+    ap.add_argument("--out", default=os.path.join(_OUT, "histeq_demo.png"))
     args = ap.parse_args()
 
     if args.video:
@@ -102,6 +103,7 @@ def main():
 
     panel = np.hstack([bgr, ours, baseline])
     hists = np.hstack([plot_hist(bgr), plot_hist(ours), plot_hist(baseline)])
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     cv2.imwrite(args.out, np.vstack([panel, hists]))
     print(f"wrote {args.out} (original | ours | cv2-CLAHE, with histograms)")
 

@@ -14,14 +14,15 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "out")
 
 import numpy as np
 
 
 def main():
-    from oclcomputervision_tpu.ops.motion import estimate_motion_pyramid
-    from oclcomputervision_tpu.utils import asset_path, epe, load_gray, read_flo, write_flo
-    from oclcomputervision_tpu.utils.profiling import timed
+    from oclcomputervision_jax.ops.motion import estimate_motion_pyramid
+    from oclcomputervision_jax.utils import asset_path, epe, load_gray, read_flo, write_flo
+    from oclcomputervision_jax.utils.profiling import timed
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed-mode", default="fixed", choices=["fixed", "shipped"])
@@ -32,7 +33,7 @@ def main():
     ap.add_argument("--subpixel", type=int, default=0,
                     help="rounds of (equiangular subpixel refine -> median) per "
                          "level (0=off; 12 cuts EPE a further ~35%% over --smooth 9)")
-    ap.add_argument("--outdir", default="/tmp")
+    ap.add_argument("--outdir", default=_OUT)
     ap.add_argument("--probe", type=int, nargs=2, metavar=("Y", "X"),
                     help="also write the zoomed search view at this pixel")
     ap.add_argument("--refine", default="auto",
@@ -40,6 +41,7 @@ def main():
                     help="hybrid refinement schedule for --method fast "
                          "(see estimate_motion_pyramid)")
     args = ap.parse_args()
+    os.makedirs(args.outdir, exist_ok=True)
 
     g0 = load_gray("frame10.png")
     g1 = load_gray("frame11.png")
@@ -65,7 +67,7 @@ def main():
         try:
             import cv2
 
-            from oclcomputervision_tpu.compat import mv2hsv
+            from oclcomputervision_jax.compat import mv2hsv
 
             cv2.imwrite(os.path.join(args.outdir, f"layer{lv}.png"), mv2hsv(mv, scale))
         except ImportError:

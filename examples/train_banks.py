@@ -29,8 +29,8 @@ RIDGE_GRID = (0.002, 0.004, 0.006, 0.01, 0.015, 0.03)
 
 
 def corpus():
-    from oclcomputervision_tpu.oracle.pyramid import pyr_down
-    from oclcomputervision_tpu.utils import load_gray, load_image
+    from oclcomputervision_jax.oracle.pyramid import pyr_down
+    from oclcomputervision_jax.utils import load_gray, load_image
 
     ue = load_image("under_exposure.jpg")
     split = int(ue.shape[1] * 0.6)
@@ -50,8 +50,8 @@ def degrade(hr, s):
 
 
 def quality(model, hr_img):
-    from oclcomputervision_tpu.ops.interpolation import resize_uint8
-    from oclcomputervision_tpu.utils import psnr
+    from oclcomputervision_jax.ops.interpolation import resize_uint8
+    from oclcomputervision_jax.utils import psnr
 
     s = model.cfg.scale
     hr, lr = degrade(hr_img, s)
@@ -61,14 +61,14 @@ def quality(model, hr_img):
 
 
 def main():
-    import jax
+    from oclcomputervision_jax.utils.cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ocv_tpu_jax_cache")
+    enable_compile_cache()
 
-    from oclcomputervision_tpu.models.raisr import RaisrModel, train_filters
-    from oclcomputervision_tpu.utils import load_gray
-    from oclcomputervision_tpu.utils.assets import asset_path
-    from oclcomputervision_tpu.utils.config import RaisrConfig
+    from oclcomputervision_jax.models.raisr import RaisrModel, train_filters
+    from oclcomputervision_jax.utils import load_gray
+    from oclcomputervision_jax.utils.assets import asset_path
+    from oclcomputervision_jax.utils.config import RaisrConfig
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--scales", type=int, nargs="+", default=[2, 3, 4])
@@ -93,12 +93,12 @@ def main():
         # re-solve per grid point
         import jax.numpy as jnp
 
-        from oclcomputervision_tpu.models.raisr import (
+        from oclcomputervision_jax.models.raisr import (
             _training_arrays,
             accumulate_normal_eq,
             solve_filters,
         )
-        from oclcomputervision_tpu.oracle import raisr as oracle_raisr
+        from oclcomputervision_jax.oracle import raisr as oracle_raisr
 
         d = cfg.filter_len**2
         g = jnp.zeros((cfg.num_filters, d, d), jnp.float32)

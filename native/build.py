@@ -1,7 +1,7 @@
 """Build the native host-runtime shared library.
 
 Usage: python native/build.py  (or let utils._native build lazily).
-Produces oclcomputervision_tpu/utils/_libocv_native.so.
+Produces oclcomputervision_jax/utils/_libocv_native.so.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "ocv_native.cpp")
 OUT = os.path.join(
-    os.path.dirname(HERE), "oclcomputervision_tpu", "utils", "_libocv_native.so"
+    os.path.dirname(HERE), "oclcomputervision_jax", "utils", "_libocv_native.so"
 )
 
 

@@ -1,13 +1,13 @@
-// Native host-side runtime for oclcomputervision_tpu.
+// Native host-side runtime for oclcomputervision_jax.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); this library owns the
+// The accelerator owns the compute path (JAX/XLA/Pallas); this library owns the
 // host side: asset decode (.flo), uint8 staging transforms, and fast CPU
 // reference kernels used as golden oracles and device-less fallbacks.
 // (The reference toolkit's host runtime was pyopencl host code,
 // e.g. histeq/eq_opencl.py; this is its native equivalent.)
 //
 // Exposed as a plain C ABI consumed via ctypes
-// (oclcomputervision_tpu/utils/_native.py). Build: native/build.py.
+// (oclcomputervision_jax/utils/_native.py). Build: native/build.py.
 
 #include <algorithm>
 #include <cmath>

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from oclcomputervision_tpu import compat, oracle
+from oclcomputervision_jax import compat, oracle
 
 
 class TestHisteqCompat:
@@ -45,7 +45,7 @@ class TestUtilityCompat:
         assert isinstance(ms, list) and len(ms) == 1
         assert dst.mean() > 10  # actually written
         # lds aliases exist (reference API parity)
-        assert util.bicubic_lds == util.bicubic  # same TPU kernel
+        assert util.bicubic_lds == util.bicubic  # same JAX op
 
     def test_bilinear(self, lenna_gray):
         # the reference's `bilinear` method = bilinear_simple = the HW
@@ -54,7 +54,7 @@ class TestUtilityCompat:
         src = np.stack([lenna_gray[:32, :32]] * 3, axis=-1)
         dst = np.zeros((64, 64, 3), np.uint8)
         util.bilinear(src, dst)
-        from oclcomputervision_tpu.oracle.interpolation import resize_uint8
+        from oclcomputervision_jax.oracle.interpolation import resize_uint8
 
         want = resize_uint8(src, (64, 64), "bilinear", mapping="hw_sampler")
         assert np.abs(dst.astype(int) - want.astype(int)).max() <= 1
@@ -66,7 +66,7 @@ class TestUtilityCompat:
         d_lds = np.zeros((64, 64, 3), np.uint8)
         util.bilinear(src, d_simple)
         util.bilinear_lds(src, d_lds)
-        from oclcomputervision_tpu.oracle.interpolation import resize_uint8
+        from oclcomputervision_jax.oracle.interpolation import resize_uint8
 
         want = resize_uint8(src, (64, 64), "bilinear")
         assert np.abs(d_lds.astype(int) - want.astype(int)).max() <= 1
@@ -211,7 +211,7 @@ class TestRaisrCompat:
 
 class TestPipeline:
     def test_enhance_pipeline(self, under_exposure_gray):
-        from oclcomputervision_tpu.models.pipeline import EnhanceConfig, EnhancePipeline
+        from oclcomputervision_jax.models.pipeline import EnhanceConfig, EnhancePipeline
 
         g = under_exposure_gray[:256, :512]
         pipe = EnhancePipeline(EnhanceConfig(resize_to=(128, 256), pyramid_depth=2))
@@ -222,8 +222,8 @@ class TestPipeline:
     def test_sharded_pipeline_matches(self, under_exposure_gray):
         import jax
 
-        from oclcomputervision_tpu import parallel
-        from oclcomputervision_tpu.models.pipeline import EnhanceConfig, EnhancePipeline
+        from oclcomputervision_jax import parallel
+        from oclcomputervision_jax.models.pipeline import EnhanceConfig, EnhancePipeline
 
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
@@ -238,7 +238,7 @@ class TestPipeline:
     def test_batched_pipeline_resizes_each_image(self, under_exposure_gray):
         # regression: rank-3 [B, H, W] stacks must not be interpreted as
         # [H, W, C] by the resize/pyramid stages
-        from oclcomputervision_tpu.models.pipeline import EnhanceConfig, EnhancePipeline
+        from oclcomputervision_jax.models.pipeline import EnhanceConfig, EnhancePipeline
 
         g = under_exposure_gray[:256, :512]
         batch = np.stack([g, g[::-1].copy()])
@@ -252,11 +252,11 @@ class TestPipeline:
     def test_raisr_superres_pipeline(self, under_exposure_gray):
         # equalize -> learned 2x SR fused in one jitted program; the
         # result must match running the stages separately
-        from oclcomputervision_tpu.models.pipeline import EnhanceConfig, EnhancePipeline
-        from oclcomputervision_tpu.models.raisr import RaisrModel
-        from oclcomputervision_tpu.ops.histeq import histeq_global
-        from oclcomputervision_tpu.ops.raisr import raisr_upsample
-        from oclcomputervision_tpu.utils.assets import asset_path
+        from oclcomputervision_jax.models.pipeline import EnhanceConfig, EnhancePipeline
+        from oclcomputervision_jax.models.raisr import RaisrModel
+        from oclcomputervision_jax.ops.histeq import histeq_global
+        from oclcomputervision_jax.ops.raisr import raisr_upsample
+        from oclcomputervision_jax.utils.assets import asset_path
 
         model = RaisrModel.load(asset_path("raisr_filters_x2.npz"))
         g = under_exposure_gray[:64, :128]
@@ -270,7 +270,7 @@ class TestPipeline:
         np.testing.assert_array_equal(out, want)
 
     def test_raisr_superres_requires_model(self):
-        from oclcomputervision_tpu.models.pipeline import EnhanceConfig, EnhancePipeline
+        from oclcomputervision_jax.models.pipeline import EnhanceConfig, EnhancePipeline
 
         with pytest.raises(ValueError, match="RaisrModel"):
             EnhancePipeline(EnhanceConfig(superres="raisr"))
@@ -280,7 +280,7 @@ class TestPipeline:
 
 class TestHistEqRuntime:
     def test_clHistEq_api(self, under_exposure_gray):
-        from oclcomputervision_tpu import oracle
+        from oclcomputervision_jax import oracle
 
         cleq = compat.clHistEq.getInstance()
         assert cleq is compat.HistEq.getInstance()

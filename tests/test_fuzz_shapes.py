@@ -8,8 +8,8 @@ ratios, and degenerate inputs.
 import numpy as np
 import pytest
 
-from oclcomputervision_tpu import oracle
-from oclcomputervision_tpu.ops import histeq, interpolation, motion, pyramid
+from oclcomputervision_jax import oracle
+from oclcomputervision_jax.ops import histeq, interpolation, motion, pyramid
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,10 @@
-"""Histeq: TPU op vs NumPy oracle (the reference-CPU-path contract)."""
+"""Histeq: JAX op vs NumPy oracle (the reference-CPU-path contract)."""
 
 import numpy as np
 import pytest
 
-from oclcomputervision_tpu import oracle
-from oclcomputervision_tpu.ops import histeq as ops
+from oclcomputervision_jax import oracle
+from oclcomputervision_jax.ops import histeq as ops
 
 
 def _pad_to(img, mh, mw):

@@ -1,11 +1,11 @@
-"""Interpolation: TPU op vs NumPy oracle vs scipy ground truth."""
+"""Interpolation: JAX op vs NumPy oracle vs scipy ground truth."""
 
 import numpy as np
 import pytest
 
-from oclcomputervision_tpu.oracle import interpolation as onp
-from oclcomputervision_tpu.ops import interpolation as ops
-from oclcomputervision_tpu.utils import psnr
+from oclcomputervision_jax.oracle import interpolation as onp
+from oclcomputervision_jax.ops import interpolation as ops
+from oclcomputervision_jax.utils import psnr
 
 
 class TestOracle:

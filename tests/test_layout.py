@@ -5,7 +5,7 @@ the wrong axes (VERDICT r3 item 6)."""
 import numpy as np
 import pytest
 
-from oclcomputervision_tpu.ops import histeq, interpolation, motion, pyramid
+from oclcomputervision_jax.ops import histeq, interpolation, motion, pyramid
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +103,7 @@ class TestBatchFirstOps:
 
 class TestPipelineNoSpecialCase:
     def test_enhance_pipeline_batched_resize_and_pyramid(self, stack):
-        from oclcomputervision_tpu.models.pipeline import (
+        from oclcomputervision_jax.models.pipeline import (
             EnhanceConfig, EnhancePipeline,
         )
 

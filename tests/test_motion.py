@@ -1,11 +1,11 @@
-"""Motion estimation: TPU op vs NumPy oracle; EPE vs Middlebury GT."""
+"""Motion estimation: JAX op vs NumPy oracle; EPE vs Middlebury GT."""
 
 import numpy as np
 import pytest
 
-from oclcomputervision_tpu.oracle import motion as onp
-from oclcomputervision_tpu.ops import motion as ops
-from oclcomputervision_tpu.utils import epe
+from oclcomputervision_jax.oracle import motion as onp
+from oclcomputervision_jax.ops import motion as ops
+from oclcomputervision_jax.utils import epe
 
 
 class TestOracleInternals:
@@ -84,8 +84,7 @@ class TestOpsVsOracle:
 
     @pytest.mark.parametrize("seed_mode", ["shipped", "fixed"])
     def test_with_seed_bitexact(self, frames_gray, seed_mode):
-        # routes through the seeded S-map path (seed_bound='auto' = 8
-        # covers these seeds); must be bit-identical to the oracle
+        # the seeded exact search must be bit-identical to the oracle
         g0, g1 = frames_gray
         f0 = g0[100:148, 200:264]
         f1 = g1[100:148, 200:264]
@@ -98,7 +97,7 @@ class TestOpsVsOracle:
         np.testing.assert_array_equal(got, want)
 
     def test_with_seed_windowed_path_bitexact(self, frames_gray):
-        # seed_bound='none' keeps the unbounded windowed-gather search
+        # seeds beyond the search reach
         g0, g1 = frames_gray
         f0 = g0[100:132, 200:240]
         f1 = g1[100:132, 200:240]
@@ -106,16 +105,13 @@ class TestOpsVsOracle:
         seed = rng.uniform(-12, 12, size=f0.shape + (2,)).astype(np.float32)
         want = onp.estimate_motion_vector(f0, f1, 15, 5, seed=seed, seed_mode="fixed")
         got = np.asarray(
-            ops.estimate_motion_vector(
-                f0, f1, 15, 5, seed=seed, seed_mode="fixed", seed_bound="none"
-            )
+            ops.estimate_motion_vector(f0, f1, 15, 5, seed=seed, seed_mode="fixed")
         )
         np.testing.assert_array_equal(got, want)
 
     def test_seed_bound_auto_adapts_to_concrete_seed(self, frames_gray):
-        # 'auto' sizes the bound from the concrete seed (quantized):
-        # a 14 px seed selects B=16, stays unclamped, and matches the
-        # oracle bit-exactly with no warning
+        # a 14 px seed stays unclamped and matches the oracle
+        # bit-exactly with no warning
         import warnings
 
         g0, g1 = frames_gray
@@ -134,10 +130,8 @@ class TestOpsVsOracle:
         np.testing.assert_array_equal(got, want)
 
     def test_seed_bound_auto_covers_large_seeds_unclamped(self, frames_gray):
-        # a 25 px seed used to saturate at the old 16 cap (0.05 EPE on
-        # the repo's own benchmark - VERDICT r3 item 1); 'auto' now
-        # extends to 32, stays unclamped, matches the oracle bit-exactly
-        # with no warning
+        # a 25 px seed (the Middlebury finest level reaches 29 px) stays
+        # unclamped and matches the oracle bit-exactly with no warning
         import warnings
 
         g0, g1 = frames_gray
@@ -155,29 +149,50 @@ class TestOpsVsOracle:
             )
         np.testing.assert_array_equal(got, want)
 
-    def test_seed_bound_saturation_warns_and_matches_clamped_oracle(
-        self, frames_gray
-    ):
-        # beyond the 32 px 'auto' cap the base clamps with a warning,
-        # and the result equals the oracle on the clamped seed (the
-        # saturation contract)
+    def test_exact_any_seed_extent(self, frames_gray):
+        # the exact search has no seed bound: 45 px seeds are searched
+        # exactly, without a warning
+        import warnings
+
         g0, g1 = frames_gray
         f0 = g0[100:148, 200:264]
         f1 = g1[100:148, 200:264]
         rng = np.random.default_rng(9)
         seed = rng.uniform(-45, 45, size=f0.shape + (2,)).astype(np.float32)
-        tr = np.trunc(seed)
-        clamped = np.clip(tr, -32, 32) + (seed - tr)
-        want = onp.estimate_motion_vector(
-            f0, f1, 15, 5, seed=clamped, seed_mode="fixed"
-        )
-        with pytest.warns(RuntimeWarning, match="seed_bound=32"):
+        want = onp.estimate_motion_vector(f0, f1, 15, 5, seed=seed, seed_mode="fixed")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
             got = np.asarray(
                 ops.estimate_motion_vector(
                     f0, f1, 15, 5, seed=seed, seed_mode="fixed", method="exact"
                 )
             )
         np.testing.assert_array_equal(got, want)
+
+    def test_exact_pyramid_jit_matches_eager_and_oracle(self):
+        # a 12 px shift puts the finest level's seeds above 8 px: the
+        # jitted pyramid (tracer seeds) must run the same exact search
+        # as the eager one, and the finest level must equal the oracle
+        # search around that seed
+        import cv2
+        import jax
+
+        rng = np.random.default_rng(7)
+        base = cv2.GaussianBlur(
+            rng.integers(0, 256, (64, 112), np.uint8), (9, 9), 3
+        )
+        g0 = base[:, :96]
+        g1 = np.roll(base, (0, -12), (0, 1))[:, :96]
+        eager = ops.estimate_motion_pyramid(g0, g1, 2, method="exact")
+        jitted = jax.jit(
+            lambda a, b: ops.estimate_motion_pyramid(a, b, 2, method="exact")
+        )(g0, g1)
+        for e, j in zip(eager, jitted):
+            np.testing.assert_array_equal(np.asarray(e), np.asarray(j))
+        seed = np.asarray(ops.upscale_mv(eager[0], 2, mode="fixed"))
+        assert np.abs(np.trunc(seed)).max() > 8
+        want = onp.estimate_motion_vector(g0, g1, 15, 5, seed=seed, seed_mode="fixed")
+        np.testing.assert_array_equal(np.asarray(eager[-1]), want)
 
     def test_upscale_mv_matches_oracle(self):
         rng = np.random.default_rng(4)
@@ -231,7 +246,7 @@ class TestQuality:
         flows = ops.estimate_motion_pyramid(
             g0s, g1s, levels=2, method="exact", smooth=9
         )
-        from oclcomputervision_tpu.ops.motion import exact_flow_bound
+        from oclcomputervision_jax.ops.motion import exact_flow_bound
 
         for lvl, f in enumerate(flows):
             f = np.asarray(f)
@@ -374,7 +389,7 @@ class TestFastAndSmooth:
     def test_median_network_matches_sort(self, rng):
         # the pruned Batcher selection network must return the exact
         # median jnp.sort would, for every kernel size the drivers use
-        from oclcomputervision_tpu.ops.motion import (
+        from oclcomputervision_jax.ops.motion import (
             _median_network,
             _median_select,
         )
@@ -542,7 +557,7 @@ class TestBatchedPyramid:
 
 
 class TestFastResidualBand:
-    """XLA twin of the Pallas band semantics (the sp building block)."""
+    """The band-local fast iteration (the sp building block)."""
 
     def test_bands_match_full_image(self, frames_gray):
         g0 = frames_gray[0][:120, :80]
@@ -604,7 +619,7 @@ class TestHybridRefine:
         g0 = frames_gray[0][::4, ::4]
         g1 = frames_gray[1][::4, ::4]
         got = ops.estimate_motion_pyramid(g0, g1, 2, method="fast", smooth=5)
-        from oclcomputervision_tpu.ops.pyramid import gaussian_pyramid
+        from oclcomputervision_jax.ops.pyramid import gaussian_pyramid
 
         p0 = gaussian_pyramid(g0, 2, 2)
         p1 = gaussian_pyramid(g1, 2, 2)
@@ -672,12 +687,8 @@ class TestReviewRegressions:
         assert len(calls) == 1 and calls[0]["method"] == "fast"
 
     def test_refine_pass_bound_equals_clip(self, frames_gray, monkeypatch):
-        # the refine seed is the driver's OWN intermediate: its bound
-        # must be sized from (and equal to) the clamp applied to it,
-        # independent of the user's level-seed policy - a forwarded
-        # user bound < the 32 px clip would silently saturate AND fire
-        # a spurious saturation warning about a seed the user never
-        # passed
+        # the refine seed is the driver's OWN intermediate: it is clipped
+        # to the 32 px cap and searched exactly, without warnings
         import warnings
 
         g0 = frames_gray[0][::8, ::8]
@@ -691,13 +702,8 @@ class TestReviewRegressions:
 
         monkeypatch.setattr(ops, "estimate_motion_vector", spy)
         with warnings.catch_warnings():
-            # seed_bound=8 covers the tiny ::8 level seeds, so ANY
-            # RuntimeWarning here is the refine pass mis-forwarding
-            # the user bound against its own 32 px-clipped seed
             warnings.simplefilter("error", RuntimeWarning)
-            ops.estimate_motion_pyramid(
-                g0, g1, 2, method="fast", smooth=5, seed_bound=8
-            )
+            ops.estimate_motion_pyramid(g0, g1, 2, method="fast", smooth=5)
         refine = [
             k for k in calls
             if k.get("method") == "exact" and k.get("seed_mode") == "fixed"
@@ -705,16 +711,11 @@ class TestReviewRegressions:
         ]
         assert refine, "hybrid schedule ran no refine pass"
         for k in refine:
-            rb = k["seed_bound"]
-            assert isinstance(rb, int) and 8 <= rb <= 32
-            base = np.abs(np.trunc(np.asarray(k["seed"])))
-            assert float(base.max()) <= rb
+            assert float(np.abs(np.asarray(k["seed"])).max()) <= 32
 
     def test_hybrid_refine_jit_matches_eager(self):
-        # under jit the refine seed is a tracer: the bound must degrade
-        # to the full 32 px clip (NOT the 8-px tracer default), so the
-        # jitted pyramid equals the eager one whenever seeds stay
-        # within both bounds
+        # under jit the refine seed is a tracer: the jitted pyramid must
+        # equal the eager one
         import cv2
         import jax
 
@@ -723,7 +724,7 @@ class TestReviewRegressions:
             rng.integers(0, 256, (64, 112), np.uint8), (9, 9), 3
         )
         g0 = base[:, :96]
-        g1 = np.roll(base, (0, -12), (0, 1))[:, :96]  # 12 px, > the 8 default
+        g1 = np.roll(base, (0, -12), (0, 1))[:, :96]  # 12 px shift
         eager = ops.estimate_motion_pyramid(g0, g1, 2, method="fast", smooth=5)
         jitted = jax.jit(
             lambda a, b: ops.estimate_motion_pyramid(

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-native = pytest.importorskip("oclcomputervision_tpu.utils._native")
+native = pytest.importorskip("oclcomputervision_jax.utils._native")
 
-from oclcomputervision_tpu import oracle
-from oclcomputervision_tpu.utils import asset_path, read_flo
+from oclcomputervision_jax import oracle
+from oclcomputervision_jax.utils import asset_path, read_flo
 
 
 class TestFloCodec:

@@ -1,9 +1,9 @@
-"""Gaussian pyramid: TPU op vs NumPy oracle vs cv2.pyrDown."""
+"""Gaussian pyramid: JAX op vs NumPy oracle vs cv2.pyrDown."""
 
 import numpy as np
 
-from oclcomputervision_tpu.oracle import pyramid as onp
-from oclcomputervision_tpu.ops import pyramid as ops
+from oclcomputervision_jax.oracle import pyramid as onp
+from oclcomputervision_jax.ops import pyramid as ops
 
 
 class TestOracleVsCv2:
